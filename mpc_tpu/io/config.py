@@ -15,8 +15,8 @@ import os
 from typing import Dict, Optional
 
 import numpy as np
-import yaml
 
+from mpc_tpu.io import yaml_lite
 from mpc_tpu.io.scenario import Scenario, load_scenario, PlanningProblem
 from mpc_tpu.io.route import plan_route
 from mpc_tpu.models.vehicle import VehicleParams, get_vehicle
@@ -107,7 +107,7 @@ class PlanningConfig:
 
 def load_settings(path: str) -> Dict:
     with open(path, "r") as f:
-        return yaml.safe_load(f)
+        return yaml_lite.loads(f.read())
 
 
 def _mean_lateral_offset(poly: np.ndarray, path: np.ndarray,

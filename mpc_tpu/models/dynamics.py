@@ -1,6 +1,6 @@
 """Vehicle dynamics as pure jnp functions.
 
-TPU-native replacement for the reference's CasADi symbolic dynamics
+Replacement for the reference's CasADi symbolic dynamics
 (``MPC_Planner/configuration.py:339-398``).  Instead of building a symbolic
 graph per solve (the reference rebuilds the CasADi NLP every MPC step,
 ``optimizer.py:605``), these are plain traced functions: XLA compiles them once

@@ -1,6 +1,6 @@
 """Vehicle parameter tables and registry.
 
-TPU-native replacement for the reference's dependency on the CommonRoad
+Replacement for the reference's dependency on the CommonRoad
 ``vehiclemodels`` package (reference: ``MPC_Planner/configuration.py:7-8`` imports
 ``parameters_vehicle2``; bounds consumed at ``MPC_Planner/optimizer.py:36-46``).
 

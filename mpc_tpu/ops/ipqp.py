@@ -43,7 +43,7 @@ _WARM_KAPPA = 100.0  # warm-start dual clip band around the central path
 # grows z by sigma each step, and sigma = z/s feeds back), overflowing
 # sigma to inf in f32 — one inf in J'SJ turns the whole Riccati sweep NaN
 # and the NaN then persists in the dual state (observed: 1 lane in 8 of
-# the dryrun's open-loop batch, MULTICHIP_r04 7/8 — VERDICT r4 item 7).
+# a virtual-mesh dry run's open-loop batch).
 # Guards: floor slacks at _S_FLOOR and cap duals at _Z_MAX (the same 1e6
 # the AL path's lam_max soft-slack clamp uses), bounding sigma <= 1e16 —
 # safely inside f32 range while leaving ordinary iterates untouched

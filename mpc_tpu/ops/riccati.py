@@ -1,6 +1,6 @@
 """Riccati-sweep LQR backend for the SQP engine.
 
-This is the TPU-native replacement for the factorization work that the
+This is the batched replacement for the factorization work that the
 reference outsources to IPOPT's interior-point linear solver (CasADi path,
 ``MPC_Planner/optimizer.py:558``) and to the FORCESPRO generated C solver's
 stagewise QP (``optimizer.py:197-245``): the equality-constrained stagewise QP

@@ -10,7 +10,7 @@ This engine replaces BOTH reference inner solvers:
     configs (few Gauss-Newton iterations, warm start) with exact Gauss-Newton
     Hessians instead of BFGS.
 
-Design (TPU-first, fixed shapes):
+Design (fixed shapes, batched lanes):
   - Inequalities (friction circle, obstacle circles, box bounds) are handled
     with an augmented Lagrangian: fixed outer multiplier updates x fixed inner
     Gauss-Newton iterations, so the compiled program has NO data-dependent
@@ -28,7 +28,7 @@ Design (TPU-first, fixed shapes):
 from __future__ import annotations
 
 import dataclasses
-from functools import partial
+from functools import partial, wraps
 from typing import NamedTuple, Tuple
 
 import jax
@@ -43,6 +43,21 @@ NX = dyn_mod.NX
 NU = dyn_mod.NU
 # 10 formulation rows (friction + 9 circle rows) + 4 box rows (u0,u1,delta,v)
 NROWS = C.NUM_INEQ + 4
+
+
+def full_f32_contractions(fn):
+    """Trace ``fn`` with its float32 matrix contractions at full precision.
+
+    XLA may otherwise run float32 dots in TF32 on the GPU (about three
+    decimal digits), which the status tolerances — calibrated on CPU
+    float32 (``tol_stat``, ``tol_feas`` below) — were not written for.
+    The precision is fixed when the contractions are traced.
+    """
+    @wraps(fn)
+    def wrapped(*args, **kwargs):
+        with jax.default_matmul_precision("highest"):
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 def nrows(cfg) -> int:
@@ -155,15 +170,6 @@ class SolverConfig:
                                      # 'ip' (RTI-SQP over the interior-point
                                      # stagewise QP, ops.ipqp — hard
                                      # linearized constraints per step)
-    engine: str = "auto"             # batched-path engine: 'auto' uses the
-                                     # fused Pallas whole-solve kernel
-                                     # (ops.fused_gn) when the problem is in
-                                     # its envelope (al/ks/static obstacle/
-                                     # no boundary rows), 'xla' forces the
-                                     # lanes-trailing XLA path, 'fused'
-                                     # forces the kernel (error if
-                                     # ineligible).  6.8-11.7x measured over
-                                     # the XLA path (FUSED_ABLATION.json)
     ip_sqp_iters: int = 5            # SQP linearizations per solve (ip mode).
                                      # 5, not 3: under actuation noise the
                                      # head-on-obstacle overtake needs the
@@ -193,7 +199,6 @@ class SolverConfig:
                                      # no merit guard at all: FORCESPRO
                                      # maxqps=1, optimizer.py:237) — removes
                                      # most of the per-step rollout work
-                                     # (item: FUSED_ABLATION warm rows)
     ip_ls_rho: float = 300.0         # exact-penalty weight in the ip-mode
                                      # line search (objective + rho * viol).
                                      # Too large (1e3) accepts any
@@ -226,9 +231,6 @@ class SolverConfig:
             raise ValueError(f"unknown lqr_backend '{self.lqr_backend}'")
         if self.method not in ("al", "ip"):
             raise ValueError(f"unknown method '{self.method}' (al|ip)")
-        if self.engine not in ("auto", "xla", "fused"):
-            raise ValueError(
-                f"unknown engine '{self.engine}' (auto|xla|fused)")
         if self.sqp_iters < 1 or self.al_iters < 1:
             raise ValueError("sqp_iters and al_iters must be >= 1")
 
@@ -596,6 +598,7 @@ def _gn_iteration(cfg: SolverConfig, params: OcpParams, lam_lo, lam_hi, mu,
     return X_new, U_new, jnp.where(improved, merits[best], merit0)
 
 
+@full_f32_contractions
 def _kkt_residuals(cfg: SolverConfig, params: OcpParams, X, U,
                    lam_lo, lam_hi, mu):
     """Stationarity (of the AL) and primal feasibility residuals."""
@@ -765,6 +768,7 @@ def _solve_ip(cfg: SolverConfig, params: OcpParams,
                     merit=_objective(cfg, X, U, params))
 
 
+@full_f32_contractions
 def solve(cfg: SolverConfig, params: OcpParams, state: SqpState) -> Solution:
     """Solve one NMPC problem (single lane). Fixed iteration structure:
 

@@ -67,6 +67,7 @@ def _gn_iteration_vec(cfg: S.SolverConfig, params: S.OcpParams,
     return X_new, U_new
 
 
+@S.full_f32_contractions
 def solve_batch_vec(cfg: S.SolverConfig, params: S.OcpParams,
                     state: S.SqpState) -> S.Solution:
     """Batched AL solve (lanes-trailing hot path); same contract as

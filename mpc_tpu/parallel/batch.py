@@ -3,12 +3,12 @@
 The chip- and pod-scale entry points: lanes (independent NMPC instances) are
 sharded over the mesh's ``dp`` axis; XLA partitions the whole vmapped solver
 with zero communication on the hot path.  Cross-lane reductions (convergence
-counters, violation maxima — the only quantities that must cross ICI/DCN,
+counters, violation maxima — the only quantities that must cross devices,
 SURVEY.md §5) use ``shard_map`` + ``psum``/``pmax`` collectives.
 """
 from __future__ import annotations
 
-from functools import partial
+from functools import lru_cache, partial
 from typing import NamedTuple
 
 import jax
@@ -48,19 +48,31 @@ def _solve_sharded(cfg: sqp.SolverConfig, params, state, *, mesh: Mesh):
 def _engine_sharded(fn, static_arg, inputs, mesh: Mesh):
     """shard_map a batched engine over lane tiles on the dp axis.
 
-    Each device runs the engine (fused Pallas kernel / lanes-trailing XLA
-    path) on its local lane shard — the same engine selection as the
-    single-chip throughput path, now composed with the mesh (VERDICT r2
-    item 4).  ``check_vma=False``: outputs are lane-sharded, never
-    replicated.
+    Each device runs the engine (the lanes-trailing XLA path) on its
+    local lane shard — the same engine selection as the
+    single-device throughput path, composed with the mesh.
     """
-    in_specs = tuple(_lane_specs(x) for x in inputs)
-    out_shape = jax.eval_shape(lambda *a: fn(static_arg, *a), *inputs)
-    out_specs = _lane_specs(out_shape)
-    f = shard_map(lambda *a: fn(static_arg, *a), mesh=mesh,
-                  in_specs=in_specs, out_specs=out_specs, check_vma=False)
+    leaves, treedef = jax.tree.flatten(inputs)
+    f = _sharded_engine(fn, static_arg, mesh, treedef,
+                        tuple((x.shape, x.dtype) for x in leaves))
     with mesh:
-        return jax.jit(f)(*inputs)
+        return f(*inputs)
+
+
+@lru_cache(maxsize=None)
+def _sharded_engine(fn, static_arg, mesh: Mesh, treedef, avals):
+    """The jitted shard_map of :func:`_engine_sharded`, built once per
+    engine, config, mesh and input shapes (a fresh ``jax.jit`` per call
+    would re-trace the whole program every call).  ``check_vma=False``:
+    outputs are lane-sharded, never replicated."""
+    inputs = jax.tree.unflatten(
+        treedef, [jax.ShapeDtypeStruct(s, d) for s, d in avals])
+    in_specs = tuple(_lane_specs(x) for x in inputs)
+    out_specs = _lane_specs(
+        jax.eval_shape(lambda *a: fn(static_arg, *a), *inputs))
+    return jax.jit(shard_map(lambda *a: fn(static_arg, *a), mesh=mesh,
+                             in_specs=in_specs, out_specs=out_specs,
+                             check_vma=False))
 
 
 def solve_batch_sharded(cfg: sqp.SolverConfig, params: sqp.OcpParams,
@@ -71,18 +83,17 @@ def solve_batch_sharded(cfg: sqp.SolverConfig, params: sqp.OcpParams,
     no global abort on infeasible lanes (cf. reference ``optimizer.py:330``).
 
     Engine composition: without stage-axis sharding the solve dispatches
-    through the SAME engine selection as ``closed_loop_batch_vec`` (fused
-    Pallas kernels on TPU) via shard_map over lane tiles; with
-    ``cfg.stage_axis`` set the GSPMD path partitions the solver's stage
-    blocks instead (the two are alternatives — the fused kernel owns its
-    stage loop in VMEM).
+    through the SAME engine selection as ``closed_loop_batch_vec`` via
+    shard_map over lane tiles; with ``cfg.stage_axis`` set the GSPMD path
+    partitions the solver's stage blocks instead (the two are
+    alternatives).
     """
     from mpc_tpu.planner.closed_loop import select_engine
 
     params = mesh_mod.shard_lanes(params, mesh)
     state = mesh_mod.shard_lanes(state, mesh)
     engine = (None if cfg.stage_axis is not None
-              else select_engine(cfg, params.boundaries is not None))
+              else select_engine(cfg))
     if engine is None:
         return _solve_sharded(cfg, params, state, mesh=mesh)
     return _engine_sharded(engine, cfg, (params, state), mesh)
@@ -93,18 +104,17 @@ def closed_loop_batch_sharded(lcfg: cl.LoopConfig, params: cl.LoopParams,
     """Batch of full closed-loop rollouts, lanes sharded over dp.
 
     Without stage-axis sharding, each device runs the full batched closed
-    loop (``closed_loop_batch_vec`` — fused kernels on TPU) on its lane
-    shard via shard_map.  When ``lcfg.solver.stage_axis`` names a second
-    mesh axis (e.g. 'sp'), the GSPMD path is used instead: the solver's
-    Riccati stage blocks shard over it (horizon/stage parallelism) — the
+    loop (``closed_loop_batch_vec``) on its lane shard via shard_map.
+    When ``lcfg.solver.stage_axis`` names a second mesh axis (e.g. 'sp'),
+    the GSPMD path is used instead: the solver's Riccati stage blocks shard
+    over it (horizon/stage parallelism) — the
     jit runs inside the mesh context so the solver-internal
     ``PartitionSpec`` constraints resolve.
     """
     params = mesh_mod.shard_lanes(params, mesh)
     if lcfg.solver.stage_axis is None:
-        return _engine_sharded(
-            lambda lc, p: cl.closed_loop_batch_vec(lc, p), lcfg, (params,),
-            mesh)
+        return _engine_sharded(cl.closed_loop_batch_vec, lcfg, (params,),
+                               mesh)
     f = jax.vmap(lambda p: cl.run_closed_loop(lcfg, p))
     lane = NamedSharding(mesh, P("dp"))
     with mesh:  # resolve solver-internal stage_axis PartitionSpecs
@@ -112,51 +122,11 @@ def closed_loop_batch_sharded(lcfg: cl.LoopConfig, params: cl.LoopParams,
         return jax.jit(f, out_shardings=out_sh)(params)
 
 
-def lower_closed_loop_sharded(lcfg: cl.LoopConfig, params: cl.LoopParams,
-                              mesh: Mesh):
-    """Lowered (unexecuted) XLA program of :func:`closed_loop_batch_sharded`
-    (engine-sharded path) for program-structure inspection — the collective
-    census (tools/scaling_census.py) counts cross-device collectives and
-    their byte volumes in the compiled HLO to bound ICI traffic/step."""
-    params = mesh_mod.shard_lanes(params, mesh)
-    in_specs = (_lane_specs(params),)
-    out_shape = jax.eval_shape(
-        lambda p: cl.closed_loop_batch_vec(lcfg, p), params)
-    out_specs = _lane_specs(out_shape)
-    f = shard_map(lambda p: cl.closed_loop_batch_vec(lcfg, p), mesh=mesh,
-                  in_specs=in_specs, out_specs=out_specs, check_vma=False)
-    with mesh:
-        return jax.jit(f).lower(params)
-
-
-def lower_summarize_loop(result_shape, mesh: Mesh):
-    """Lowered XLA program of :func:`summarize_loop` (same census use)."""
-    spec = P("dp")
-
-    def reduce_fn(status, viol, cost):
-        conv = jnp.sum((status == 1).astype(jnp.int32))
-        infeas = jnp.sum((status < 0).astype(jnp.int32))
-        n = status.size
-        return (
-            jax.lax.psum(conv, "dp"),
-            jax.lax.psum(infeas, "dp"),
-            jax.lax.pmax(jnp.max(viol), "dp"),
-            jax.lax.psum(jnp.sum(cost), "dp")
-            / jax.lax.psum(jnp.asarray(n, cost.dtype), "dp"),
-        )
-
-    f = shard_map(reduce_fn, mesh=mesh, in_specs=(spec, spec, spec),
-                  out_specs=(P(), P(), P(), P()))
-    with mesh:
-        return jax.jit(f).lower(result_shape.status, result_shape.viol,
-                                result_shape.cost)
-
-
 def summarize(solution: sqp.Solution, mesh: Mesh) -> BatchSummary:
     """Mesh-wide reduction of solver diagnostics via psum/pmax collectives.
 
-    This is the (tiny) cross-lane communication path: scalars ride ICI
-    within a slice and DCN across hosts.
+    This is the (tiny) cross-lane communication path: a few scalars per
+    call cross the devices.
     """
     spec = P("dp")
 

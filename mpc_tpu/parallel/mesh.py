@@ -2,7 +2,7 @@
 
 The reference has NO parallelism (SURVEY.md §2.3: single process, single
 core).  This module is new capability: NMPC lanes (scenario x perturbation
-instances) scale across a TPU slice via ``jax.sharding``.
+instances) scale across the GPUs of a host via ``jax.sharding``.
 
 Axis conventions for this framework (the NMPC analog of transformer
 dp/tp/pp/sp/ep):

@@ -22,7 +22,7 @@ from mpc_tpu.planner.planner import MPCPlanner
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="mpc_tpu.planner.cli",
-        description="TPU-native NMPC motion planner for CommonRoad scenarios")
+        description="Batched NMPC motion planner for CommonRoad scenarios")
     ap.add_argument("--config", required=True, help="planner YAML config")
     ap.add_argument("--scenario-dir", required=True,
                     help="directory containing CommonRoad scenario XMLs")
@@ -48,6 +48,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import jax
+    from mpc_tpu.utils import runtime
+    runtime.enable_compile_cache()
     if args.debug_nans:
         jax.config.update("jax_debug_nans", True)
 

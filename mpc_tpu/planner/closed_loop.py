@@ -166,9 +166,7 @@ def make_loop_config(cfg: PlanningConfig,
         solver_overrides.setdefault("method", "ip")
         if solver_overrides["method"] == "ip":
             # default budget: 2 relinearizations x 6 Newton steps with
-            # warm-started duals — measured 1.82 ms/step device latency at
-            # H=9 vs the reference FORCESPRO deployment's 2.35 ms p50
-            # (LATENCY.json ip2x6w_h9); golden-parity deviation vs the full
+            # warm-started duals; golden-parity deviation vs the full
             # 5x10 budget is < 1e-3 on every configured scenario and the
             # CA noise sweeps keep clearing the obstacle (tests/
             # test_robustness.py).  Raise via YAML `solver_settings:` for
@@ -250,12 +248,11 @@ def make_loop_config(cfg: PlanningConfig,
 #     PARITY.md "true-RTI parity").  The deployment recipe instead
 #     extends the horizon to 13 transitions (N=14) so the maneuver is
 #     visible early and spread gently — a horizon the reference's
-#     generated solver could not afford, solved here in 2.18 ms/step,
-#     still under the reference's 2.35 ms H=9 budget — plus a
+#     generated solver could not afford — plus a
 #     full-strength cold-start warmup (cold_start_solves=4) and
 #     applied-prefix status gating (gate_stages=1; horizon-TAIL lag while
 #     the obstacle slides into the window is re-solved away a step
-#     later).  Perturbation-robust on both CPU and TPU backends; realized
+#     later).  Perturbation-robust on the CPU backend; realized
 #     clearance >= 3.40 m vs the 3.30 m bound on every tested run.
 #
 # Validated on all three reference scenarios by tests/test_closed_loop.py
@@ -654,35 +651,17 @@ def closed_loop_batch(lcfg: LoopConfig, params: LoopParams) -> LoopResult:
     return jax.vmap(lambda p: run_closed_loop(lcfg, p))(params)
 
 
-def select_engine(scfg: sqp.SolverConfig, have_boundaries: bool):
-    """Batched-solve engine selection shared by the vec and SHARDED paths.
+def select_engine(scfg: sqp.SolverConfig):
+    """Batched-solve engine shared by the vec and SHARDED paths.
 
-    Returns a ``(cfg, OcpParams, SqpState) -> Solution`` callable or None
-    when the method has no batched-native engine (caller falls back to the
-    vmapped per-lane path).  Engine policy (``SolverConfig.engine``): the
-    fused Pallas whole-solve kernels (``ops.fused_gn`` AL /
-    ``ops.fused_ip`` hard-constrained IP; boundary rows ride their
-    linearized per-stage rows, moving-obstacle tracks their per-stage
-    obstacle mode) when eligible on TPU, else the lanes-trailing XLA path
-    for AL and the vmapped path for IP.
+    Returns a ``(cfg, OcpParams, SqpState) -> Solution`` callable — the
+    lanes-trailing XLA path (``ops.sqp_vec``) for AL — or None when the
+    method has no batched-native engine (IP: callers fall back to the
+    vmapped per-lane path).
     """
-    from mpc_tpu.ops import fused_gn, fused_ip, sqp_vec as sqp_vec_mod
+    from mpc_tpu.ops import sqp_vec as sqp_vec_mod
 
-    fused_ok = (scfg.engine != "xla" and scfg.model in ("ks", "st")
-                and (not scfg.boundary_rows or have_boundaries)
-                # the kernels are TPU-compiled; CPU runs (tests) take the
-                # XLA path unless the caller forces interpret explicitly
-                and (jax.default_backend() == "tpu"
-                     or scfg.engine == "fused"))
-    if scfg.method == "ip":
-        return fused_ip.solve_batch_fused_ip if fused_ok else None
-    if scfg.method != "al":
-        return None
-    if scfg.engine == "fused" and not fused_ok:
-        raise ValueError("engine='fused' outside the kernel envelope "
-                         "(needs ks; boundary rows need boundary data)")
-    return (fused_gn.solve_batch_fused if fused_ok
-            else sqp_vec_mod.solve_batch_vec)
+    return sqp_vec_mod.solve_batch_vec if scfg.method == "al" else None
 
 
 def _vmapped_solve(cfg, params, state):
@@ -787,12 +766,9 @@ def _batched_step(lcfg: LoopConfig, params: LoopParams, batched_solve,
 def closed_loop_batch_vec(lcfg: LoopConfig, params: LoopParams) -> LoopResult:
     """Batched closed loop on the throughput hot path.
 
-    Same contract as ``closed_loop_batch``; engine via :func:`select_engine`
-    (fused kernels 4-58x over the XLA/vmapped paths on v5e —
-    FUSED_ABLATION.json).
+    Same contract as ``closed_loop_batch``; engine via :func:`select_engine`.
     """
-    batched_solve = select_engine(lcfg.solver,
-                                  params.boundaries is not None)
+    batched_solve = select_engine(lcfg.solver)
     if batched_solve is None:
         return closed_loop_batch(lcfg, params)
 
@@ -817,7 +793,7 @@ def closed_loop_batch_vec(lcfg: LoopConfig, params: LoopParams) -> LoopResult:
 
 
 def _serving_engine(lcfg: LoopConfig, params: LoopParams):
-    eng = select_engine(lcfg.solver, params.boundaries is not None)
+    eng = select_engine(lcfg.solver)
     return eng if eng is not None else _vmapped_solve
 
 

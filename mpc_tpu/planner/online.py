@@ -82,15 +82,14 @@ class OnlinePlanner:
 
 class BatchedOnlinePlanner:
     """Serve a FLEET of vehicles in lockstep: one warm NMPC solve per
-    vehicle per call, batched on-chip (the fused Pallas engines on TPU).
+    vehicle per call, batched on the device (``closed_loop.select_engine``).
 
     The single-stream :class:`OnlinePlanner` is the reference-parity
     deployment shape (one vehicle, one measured state); this is the
-    TPU-native serving shape — thousands of independent vehicles on the
-    same roadway configuration solved as one compiled batch (0.3-4 us of
-    device time per vehicle per step at production budgets,
-    FUSED_ABLATION.json / bench.py).  Lanes never poison each other:
-    every lane carries its own warm state and per-lane status.
+    batched serving shape — thousands of independent vehicles on the
+    same roadway configuration solved as one compiled batch.  Lanes never
+    poison each other: every lane carries its own warm state and per-lane
+    status.
 
         fleet = BatchedOnlinePlanner(config, n_lanes=1024)
         U, info = fleet.step(X_measured)   # (1024, 5) -> (1024, 2)

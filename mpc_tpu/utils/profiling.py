@@ -6,12 +6,10 @@ persisted as ``solve time.txt``.  Here:
 
   * :func:`trace` wraps ``jax.profiler`` for full XLA traces viewable in
     TensorBoard/Perfetto;
-  * :func:`time_jitted` measures steady-state device time of a jitted
-    callable.  It reduces the output pytree to ONE scalar on device before
-    fetching, so the measurement is not polluted by host transfers — on
-    remote-attached TPUs (e.g. relay/tunnel setups) fetching a full result
-    can cost 10-100x the kernel itself and `block_until_ready` may not
-    reliably block;
+  * :func:`time_jitted` measures the steady-state time of a jitted
+    callable: host clock around calls that end in ``block_until_ready``
+    (JAX returns before the device finishes, so a timing without it
+    measures the enqueue);
   * :func:`solve_time_series` reproduces the reference's per-step
     ``solve time.txt`` semantics from a wall-timed closed-loop run.
 """
@@ -22,7 +20,6 @@ import time
 from typing import Callable, Sequence
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
 
@@ -44,32 +41,22 @@ def trace(log_dir: str):
         jax.profiler.stop_trace()
 
 
-def _scalarize(fn: Callable) -> Callable:
-    """Wrap ``fn`` so its output pytree reduces to one on-device scalar."""
-    def wrapped(*args):
-        out = fn(*args)
-        leaves = jax.tree.leaves(out)
-        return sum((jnp.sum(leaf.astype(jnp.float32)) for leaf in leaves),
-                   jnp.float32(0.0))
-    return jax.jit(wrapped)
-
-
 def time_jitted(fn: Callable, *args, reps: int = 10,
                 warmup: int = 1) -> float:
-    """Steady-state seconds per call of ``fn(*args)`` (device time).
+    """Steady-state seconds per call of ``jax.jit(fn)(*args)``.
 
-    ``fn`` is jitted with its output reduced to a single scalar on device;
-    only that scalar crosses the host boundary, so transfer cost does not
-    contaminate the measurement.
+    Calls are issued back to back and the last result is waited for with
+    ``jax.block_until_ready``, so the figure is the device-bound
+    throughput of the call (no host transfer of the outputs).
     """
-    f = _scalarize(fn)
+    f = jax.jit(fn)
     for _ in range(max(warmup, 1)):
-        float(f(*args))          # compile + settle
+        jax.block_until_ready(f(*args))  # compile + settle
     t0 = time.perf_counter()
-    v = None
+    out = None
     for _ in range(reps):
-        v = f(*args)
-    float(v)                     # one scalar fetch drains the stream
+        out = f(*args)
+    jax.block_until_ready(out)
     return (time.perf_counter() - t0) / reps
 
 

@@ -1,6 +1,6 @@
 // mpc_native: host-side geometry runtime for the mpc_tpu framework.
 //
-// TPU-native equivalents of the reference's C++ pybind11 modules
+// Equivalents of the reference's C++ pybind11 modules
 // (SURVEY.md §2.2):
 //   * pycrcc collision checker + road-boundary checks
 //     (reference test/test_mpc_planner.py:36-47): oriented-rectangle SAT

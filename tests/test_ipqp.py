@@ -200,7 +200,7 @@ def test_ip_infeasible_start_boundary():
     violation) on exactly this instance.
     """
     from mpc_tpu.ops import sqp
-    from tests.test_fused_gn import _straight_corridor
+    from tests.test_sqp_vec import _straight_corridor
     from tests.test_sqp import straight_params
 
     H = 12

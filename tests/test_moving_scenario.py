@@ -1,4 +1,4 @@
-"""Shipped moving-obstacle scenario, end-to-end (VERDICT r4 item 5).
+"""Shipped moving-obstacle scenario, end-to-end.
 
 ``scenarios/SYN_Moving-1.xml`` carries a dynamic obstacle with a real
 recorded ``<trajectory>`` (a 6 m/s lead vehicle riding near the curb);

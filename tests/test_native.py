@@ -1,7 +1,7 @@
 """Native C++ geometry runtime vs the Python/JAX implementations.
 
 The native library (``native/mpc_native.cpp``, built via ``make``) is the
-TPU-framework counterpart of the reference's C++ pybind11 modules — pycrcc
+framework's counterpart of the reference's C++ pybind11 modules — pycrcc
 collision checks (reference ``test/test_mpc_planner.py:36-47``) and the
 pycrccosy curvilinear coordinate system (``configuration.py:264-277``).
 These tests build it on demand and cross-check every exported entry point

@@ -2,6 +2,7 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from mpc_tpu.ops import riccati as R
 from mpc_tpu.ops import riccati_vec as RV
@@ -88,3 +89,120 @@ def test_closed_loop_batch_vec_matches_reference():
                                   np.asarray(r1.status) >= 0)
 
 
+def _fan(p, cfg, n=4, key=0):
+    from mpc_tpu.parallel import batch as pb
+    params = pb.perturb_x0(pb.replicate_ocp(p, n), jax.random.PRNGKey(key),
+                           jnp.asarray([0.5, 0.2, 0.0, 0.5, 0.02],
+                                       jnp.float32))
+    state = jax.vmap(lambda _: sqp.init_state(cfg))(jnp.arange(n))
+    return params, state
+
+
+def _straight_corridor(dtype=jnp.float32, y_left=2.5, y_right=-4.0):
+    """Two straight boundary lines (left above, right below), inside-positive
+    signs."""
+    n = 64
+    xs = np.linspace(1e3, -1e3, n)
+    left = np.stack([xs, np.full(n, y_left)], 1)
+    right = np.stack([-xs, np.full(n, y_right)], 1)
+    return (jnp.asarray(np.stack([left, right]), dtype),
+            jnp.ones((2,), dtype))
+
+
+def _assert_matches(vec, ref):
+    np.testing.assert_allclose(np.asarray(vec.U), np.asarray(ref.U),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(np.asarray(vec.X), np.asarray(ref.X),
+                               rtol=2e-3, atol=2e-2)
+    np.testing.assert_allclose(np.asarray(vec.viol), np.asarray(ref.viol),
+                               atol=1e-3)
+    np.testing.assert_allclose(np.asarray(vec.cost), np.asarray(ref.cost),
+                               rtol=1e-3, atol=1e-2)
+
+
+@pytest.mark.parametrize("formulation,integrator,alphas", [
+    ("forcespro", "rk4", (1.0, 0.35, 0.12, 0.04, 0.012, 1e-3)),
+    ("casadi", "euler", (1.0, 0.35, 0.12, 0.04, 0.012, 1e-3)),
+    ("forcespro", "rk4", ()),   # unguarded full RTI step (maxqps=1)
+])
+def test_vec_matches_reference_per_formulation(formulation, integrator,
+                                               alphas):
+    """Both formulations, and the unguarded step, through the lanes-
+    trailing engine vs the vmapped per-lane solver (obstacle active)."""
+    H = 12
+    cfg = sqp.SolverConfig(horizon=H, formulation=formulation,
+                           integrator=integrator,
+                           use_terminal_cost=(formulation == "forcespro"),
+                           sqp_iters=2, al_iters=2, alphas=alphas)
+    p = straight_params(H, v=16.0)
+    p = p._replace(x0=p.x0.at[3].set(14.0),
+                   obs_centers=jnp.array([[10.0, -1.6]] * 3))
+    params, state = _fan(p, cfg)
+    _assert_matches(sqp_vec.solve_batch_vec_jit(cfg, params, state),
+                    sqp.solve_batch(cfg, params, state))
+
+
+def test_vec_moving_obstacle_matches_reference():
+    """(B, H+1, 3, 2) per-stage obstacle centers through the engine."""
+    H = 8
+    cfg = sqp.SolverConfig(horizon=H, sqp_iters=2, al_iters=2)
+    p = straight_params(H, v=14.0)
+    ts = jnp.arange(H + 1, dtype=jnp.float32)[:, None, None]
+    p = p._replace(obs_centers=jnp.array([[11.0, -1.8]] * 3)[None]
+                   + ts * jnp.array([0.3, 0.05]))
+    params, state = _fan(p, cfg, n=2)
+    _assert_matches(sqp_vec.solve_batch_vec_jit(cfg, params, state),
+                    sqp.solve_batch(cfg, params, state))
+
+
+def test_vec_boundary_rows_match_reference():
+    """Active road-boundary rows: the boundary row binds and pulls the
+    lateral position below the reference line, identically in both."""
+    H = 8
+    cfg = sqp.SolverConfig(horizon=H, sqp_iters=2, al_iters=2,
+                           boundary_rows=True)
+    p = straight_params(H, v=14.0)
+    p = p._replace(x_ref=p.x_ref.at[:, 1].set(1.8),
+                   obs_centers=jnp.full((3, 2), -1e4))
+    bnds, signs = _straight_corridor()
+    params, state = _fan(p._replace(boundaries=bnds, boundary_signs=signs),
+                         cfg, n=2)
+    vec = sqp_vec.solve_batch_vec_jit(cfg, params, state)
+    _assert_matches(vec, sqp.solve_batch(cfg, params, state))
+    assert float(jnp.max(vec.X[..., 1])) < 1.6
+
+
+def test_vec_st_model_matches_reference():
+    """The 7-state ST model family through the engine."""
+    from mpc_tpu.models.vehicle import VEHICLE_2
+    from tests.test_st_model import _lane_ocp
+    H = 8
+    cfg = sqp.SolverConfig(horizon=H, model="st", vehicle=VEHICLE_2,
+                           sqp_iters=2, al_iters=2)
+    p = _lane_ocp(H, v=14.0)._replace(
+        obs_centers=jnp.array([[11.0, -1.8]] * 3))
+    params, state = _fan(p, cfg, n=2)
+    vec = sqp_vec.solve_batch_vec_jit(cfg, params, state)
+    ref = sqp.solve_batch(cfg, params, state)
+    assert vec.X.shape[-1] == 7
+    _assert_matches(vec, ref)
+
+
+def test_vec_warm_start_improves():
+    """Re-solving from the returned state keeps improving (RTI contract)."""
+    H = 10
+    cfg = sqp.SolverConfig(horizon=H, sqp_iters=2, al_iters=2)
+    params, state = _fan(straight_params(H, v=15.0), cfg, n=2)
+    s1 = sqp_vec.solve_batch_vec_jit(cfg, params, state)
+    s2 = sqp_vec.solve_batch_vec_jit(cfg, params, s1.state)
+    assert float(jnp.max(s2.kkt_stat)) <= float(jnp.max(s1.kkt_stat)) + 1e-5
+
+
+@pytest.mark.parametrize("method,expected", [
+    ("al", sqp_vec.solve_batch_vec),
+    ("ip", None),   # no batched-native IP engine: vmapped per-lane path
+])
+def test_select_engine(method, expected):
+    from mpc_tpu.planner import closed_loop as cl
+    assert cl.select_engine(sqp.SolverConfig(horizon=4,
+                                             method=method)) is expected
